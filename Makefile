@@ -1,10 +1,10 @@
-# TPU-native ST-DADK framework — developer entry points
+# ST-DADK framework (JAX) — developer entry points
 # (role parity with the reference Makefile:49-94)
 
 PYTHON ?= python
 CPU_ENV = JAX_PLATFORMS=cpu JAX_PLATFORM_NAME=cpu
 
-.PHONY: help install test test-fast test-slow test-cov test-tpu lint train grid-search \
+.PHONY: help install test test-fast test-slow test-cov smoke lint train grid-search \
         table44 analyze bench dryrun native clean
 
 help:
@@ -13,7 +13,7 @@ help:
 	@echo "make test-fast    - inner loop: the suite minus slow-marked tests"
 	@echo "make test-slow    - the slow-marked integration lane (separate process)"
 	@echo "make test-cov     - tests with coverage"
-	@echo "make test-tpu     - run the suite on the real TPU backend"
+	@echo "make smoke        - chip_smoke.py: the main path on one GPU"
 	@echo "make train        - multi-experiment training run (default config)"
 	@echo "make grid-search  - full grid search (vmapped experiment batches)"
 	@echo "make table44      - Table 4.4 reproduction (STDK vs DA-STDK CRPS)"
@@ -45,12 +45,10 @@ test-slow:
 test-cov:
 	$(PYTHON) -m pytest tests/ --cov=st_dadk_tpu --cov-report=term-missing
 
-# run the kernel/numeric tests on the REAL TPU backend (multi-device tests
-# skip; the Pallas parity assertions then execute on actual hardware)
-test-tpu:
-	ST_DADK_TEST_TPU=1 $(PYTHON) -m pytest \
-		tests/test_pallas_basis.py tests/test_pallas_fused.py \
-		tests/test_basis.py tests/test_losses.py tests/test_model.py -x -q
+# the main path on one GPU at full width, checked against the plain
+# reference (needs a GPU; exits non-zero without one)
+smoke:
+	$(PYTHON) chip_smoke.py
 
 lint:
 	$(PYTHON) -m py_compile $$(git ls-files '*.py')

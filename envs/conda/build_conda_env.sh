@@ -1,11 +1,11 @@
 #!/usr/bin/env bash
-# Build the st-dadk-tpu conda environment (parity with the reference's
+# Build the st-dadk conda environment (parity with the reference's
 # envs/conda/build_conda_env.sh, minus its cluster-specific module loads).
 #
 #   ./envs/conda/build_conda_env.sh [-c ENV_NAME]
 set -euo pipefail
 
-ENV_NAME="st-dadk-tpu"
+ENV_NAME="st-dadk"
 while [[ $# -gt 0 ]]; do
   case "$1" in
     -c|--conda_env) ENV_NAME="$2"; shift 2 ;;
@@ -23,7 +23,7 @@ else
   conda env create -n "$ENV_NAME" -f "$HERE/environment.yml"
 fi
 
-# optional native CSV ingest (loader falls back to pandas without it)
+# optional native CSV ingest (loader falls back to numpy without it)
 make -C "$HERE/../../native" 2>/dev/null \
   || echo "[conda] native build skipped (no C++ toolchain)"
 

@@ -1,11 +1,11 @@
 #!/usr/bin/env bash
-# Launch JupyterLab against the st-dadk-tpu environment (parity with the
-# reference's envs/jupyter/start_jupyter_lab.sh; its SLURM/ssh-tunnel
-# plumbing is out of scope here — on a TPU VM you port-forward with gcloud).
+# Launch JupyterLab against the st-dadk environment (parity with the
+# reference's envs/jupyter/start_jupyter_lab.sh; its SLURM plumbing is out
+# of scope here — on a remote GPU host, forward the port with ssh).
 #
 #   ./envs/jupyter/start_jupyter_lab.sh [-p PORT]
 #
-# Remote use:  gcloud compute tpus tpu-vm ssh <vm> -- -L 8888:localhost:8888
+# Remote use:  ssh -L 8888:localhost:8888 <gpu-host>
 set -euo pipefail
 
 PORT=8888

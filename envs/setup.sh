@@ -1,8 +1,8 @@
 #!/usr/bin/env bash
 # Environment setup (role parity with the reference's envs/ scripts).
 #
-# TPU hosts ship jax with the TPU runtime preinstalled; this script covers a
-# fresh CPU/dev machine. No conda requirement — plain venv.
+# Plain venv, no conda requirement. CPU jax by default (what the tests
+# need); set JAX_EXTRA=cuda12 on a machine with an NVIDIA GPU.
 set -euo pipefail
 
 PYTHON=${PYTHON:-python3}
@@ -13,11 +13,11 @@ $PYTHON -m venv "$VENV"
 source "$VENV/bin/activate"
 
 pip install --upgrade pip
-# CPU jax by default; on TPU hosts install the matching jax[tpu] wheel instead
-pip install "jax[cpu]" numpy pandas pyyaml matplotlib pytest torch
+JAX_EXTRA=${JAX_EXTRA:-cpu}
+pip install "jax[$JAX_EXTRA]" numpy scipy pandas pyyaml matplotlib pytest torch
 pip install -e .
 
-# native CSV ingest (optional; the loader falls back to pandas without it)
+# native CSV ingest (optional; the loader falls back to numpy without it)
 make -C native || echo "[setup] native build skipped (no toolchain)"
 
 echo "[setup] done. Run: make test"

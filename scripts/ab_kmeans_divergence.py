@@ -7,7 +7,7 @@ framework's default `kmeans_balanced` uses a Sinkhorn-OT balanced
 assignment (vmappable, runs on device inside the batch engine), with
 `kmeans_exact` (auction-solver, host-side) available for strict fidelity.
 docs/PARITY.md asserts the divergence is metric-neutral; this script
-MEASURES it (VERDICT round-2 item 7): 10 seeds of the Table-4.4 clustered
+MEASURES it: 10 seeds of the Table-4.4 clustered
 scenarios (where the data-adaptive init is the differentiator), same
 protocol, both inits, test CRPS mean ± std side by side.
 
@@ -26,8 +26,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from st_dadk_tpu.utils.platform import apply_platform_env  # noqa: E402
+from st_dadk_tpu.utils.platform import (apply_platform_env,  # noqa: E402
+                                        enable_compile_cache)
 apply_platform_env()
+enable_compile_cache()
 
 import numpy as np  # noqa: E402
 

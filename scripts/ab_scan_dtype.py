@@ -1,9 +1,8 @@
 #!/usr/bin/env python
 """Paired timing of the EPOCH-SCAN program alone across config variants.
 
-The round-3 verdict on `train_dtype=bf16` (1.39x slower full-stack, by
-elimination per-STEP) was measured on whole fits; this harness isolates the
-one compiled program that matters — the 100-epoch vmapped fit chunk — and
+Whole-fit timings mix many programs; this harness isolates the one
+compiled program that matters — the 100-epoch vmapped fit chunk — and
 times variants back-to-back on the SAME lane batch (same data, same initial
 carry), so the comparison has no init/eval/finalize/trajectory term and no
 session-drift term. Optionally dumps each variant's optimized HLO for
@@ -25,15 +24,11 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-import os  # noqa: E402
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
 from st_dadk_tpu.utils.platform import (apply_platform_env,  # noqa: E402
-                                        device_barrier)
+                                        enable_compile_cache)
 
 apply_platform_env()
+enable_compile_cache()
 
 
 def parse_variant(s: str):
@@ -161,10 +156,10 @@ def main() -> int:
         # donate_argnums=(0,)) — re-place a fresh copy per call, outside the
         # timed region
         carry_in = jax.device_put(carry_host, sh)
-        device_barrier(carry_in["params"])
+        jax.block_until_ready(carry_in["params"])
         t0 = time.time()
         new_carry, hist = fit(carry_in, consts_b, data_b, ids, lr_c, active)
-        device_barrier((new_carry["params"], hist["train_loss"]))
+        jax.block_until_ready((new_carry["params"], hist["train_loss"]))
         return time.time() - t0
 
     names = [n for n, _ in variants]

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
-"""Lane-count scaling attribution for the training scan (VERDICT r3 task 3).
+"""Lane-count scaling attribution for the training scan.
 
-Round 3 measured native M=32 lane batches ~24% slower per fit than M=16
-(docs/BENCHMARKS.md "scan cost scales 2.43x per 2x lanes past M=16") and
-worked around it with the auto-split policy. This harness isolates WHERE the
+Wider lane batches can cost superlinearly per fit, which the auto-split
+policy (LANES_PER_DEVICE) works around. This harness isolates WHERE a
 superlinear term lives: it builds the 100-epoch vmapped fit-chunk program at
 several lane counts (same bench workload, shared seeds/masks per lane id),
 times them PAIRWISE-interleaved in one process (drift-controlled, same
@@ -29,16 +28,12 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-import os  # noqa: E402
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
-from st_dadk_tpu.utils.platform import apply_platform_env  # noqa: E402
+from st_dadk_tpu.utils.platform import (apply_platform_env,  # noqa: E402
+                                        enable_compile_cache)
 
 apply_platform_env()
+enable_compile_cache()
 
-from st_dadk_tpu.utils.platform import device_barrier  # noqa: E402
 
 
 def parse_kv(items):
@@ -174,11 +169,11 @@ def main() -> int:
     def run(M: int) -> float:
         a = arms[M]
         carry_in = jax.device_put(a["carry_host"], a["sh"])
-        device_barrier(carry_in["params"])
+        jax.block_until_ready(carry_in["params"])
         t0 = time.time()
         new_carry, hist = a["fit"](carry_in, a["consts_b"], a["data_b"],
                                    a["ids"], a["lr_c"], a["active"])
-        device_barrier((new_carry["params"], hist["train_loss"]))
+        jax.block_until_ready((new_carry["params"], hist["train_loss"]))
         return time.time() - t0
 
     Ms = list(args.lanes)

@@ -1,12 +1,9 @@
 #!/usr/bin/env python
-"""Scaling-regime study: where do the HBM levers (bf16 trunk, remat) flip
-from neutral/negative to winning as the MODEL grows?
+"""Scaling-regime study: where do the memory-traffic levers (bf16 trunk,
+remat) flip from neutral/negative to winning as the MODEL grows?
 
-At the reference size the measured verdicts are: bf16 scan −6% / whole-fit
-neutral at M≤16 (winner only at wide lanes), remat +19% SLOWER (recompute
-exceeds the live-set saving — docs/BENCHMARKS.md "Round-4 per-HLO
-attribution"). Both knobs' costs/savings scale with activation bytes, so
-each has a predicted crossover as hidden_dims / k grow. This harness maps
+Both knobs' costs/savings scale with activation bytes, so each has a
+predicted crossover as hidden_dims / k grow. This harness maps
 it: for a grid of model sizes it builds the SAME 100-epoch vmapped
 fit-chunk program used by ab_scan_lanes (one st_dadk engine batch, M lanes
 of the 2a_8 workload) under arms {f32, bf16, remat, bf16+remat}, times the
@@ -34,16 +31,12 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-import os  # noqa: E402
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
-from st_dadk_tpu.utils.platform import apply_platform_env  # noqa: E402
+from st_dadk_tpu.utils.platform import (apply_platform_env,  # noqa: E402
+                                        enable_compile_cache)
 
 apply_platform_env()
+enable_compile_cache()
 
-from st_dadk_tpu.utils.platform import device_barrier  # noqa: E402
 
 
 def _load_scan_harness():
@@ -75,9 +68,6 @@ ARMS = {
     "bf16": {"train_dtype": "bf16"},
     "remat": {"remat": True},
     "bf16_remat": {"train_dtype": "bf16", "remat": True},
-    # measured-negative-at-reference-size Pallas training embed (VERDICT r4
-    # item 1: does it earn a regime at larger k / hidden_dims?)
-    "pallas": {"use_pallas": True, "use_pallas_training": True},
 }
 
 
@@ -124,11 +114,11 @@ def main() -> int:
         def run(arm: str) -> float:
             a = arms[arm]
             carry_in = jax.device_put(a["carry_host"], a["sh"])
-            device_barrier(carry_in["params"])
+            jax.block_until_ready(carry_in["params"])
             t0 = time.time()
             new_carry, hist = a["fit"](carry_in, a["consts_b"], a["data_b"],
                                        a["ids"], a["lr_c"], a["active"])
-            device_barrier((new_carry["params"], hist["train_loss"]))
+            jax.block_until_ready((new_carry["params"], hist["train_loss"]))
             return time.time() - t0
 
         names = list(arms)

@@ -19,8 +19,10 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from st_dadk_tpu.utils.platform import apply_platform_env  # noqa: E402
+from st_dadk_tpu.utils.platform import (apply_platform_env,  # noqa: E402
+                                        enable_compile_cache)
 apply_platform_env()
+enable_compile_cache()
 
 import numpy as np
 import pandas as pd
@@ -91,8 +93,7 @@ def main():
     centers, bw = init_spatial_centers(cfg.spatial_init_method,
                                        cfg.k_spatial_centers, train_coords,
                                        key=jax.random.PRNGKey(args.seed))
-    spec = spec_from_config(cfg)  # use_pallas follows the config default
-    # (OFF since round 3: XLA path ties/wins, results/dense_inference_r3.json)
+    spec = spec_from_config(cfg)
     params, consts = init_model(jax.random.PRNGKey(args.seed), spec,
                                 centers, bw)
     t0 = time.time()

@@ -3,9 +3,8 @@
 
 Times every host<->device interaction of one steady-state batch separately:
 setup, stacking/upload, each chunk dispatch vs its history pull vs the
-stopped-flag sync, batched eval, and finalize. Run on the real TPU to see
-where chunk turnaround goes (docs/ROADMAP round-2 item: 3-5s turnaround vs
-0.8s device scan).
+stopped-flag sync, batched eval, and finalize. Run on the GPU to see where
+a batch's wall goes beyond the device scan.
 """
 from __future__ import annotations
 
@@ -17,13 +16,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-# cache env vars FIRST: apply_platform_env imports jax, and jax binds
-# jax_compilation_cache_dir from the environment at import time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 from st_dadk_tpu.utils.platform import (apply_platform_env,  # noqa: E402
-                                        device_barrier)
+                                        enable_compile_cache)
 apply_platform_env()
+enable_compile_cache()
 
 import jax
 import jax.numpy as jnp
@@ -73,7 +69,7 @@ def run_batch(cfg, M, exp_dir, epochs_chunk=100, label="run"):
                                        cfg.k_spatial_centers, coords_list, keys)
     centers_b = jnp.asarray(np.stack([c for c, _ in inits]))
     bw_b = jnp.asarray(np.stack([b for _, b in inits]))
-    device_barrier(centers_b)
+    jax.block_until_ready(centers_b)
     t0 = t("setup: vmapped GMM init", t0)
 
     spec_model = setups[0].spec
@@ -92,7 +88,7 @@ def run_batch(cfg, M, exp_dir, epochs_chunk=100, label="run"):
     t0 = t("stack lanes (host)", t0)
 
     carry_b, consts_b = prepare_carry_batch(spec_model, M)(keys, centers_b, bw_b)
-    device_barrier(carry_b["params"])
+    jax.block_until_ready(carry_b["params"])
     t0 = t("prepare_carry_batch (device)", t0)
 
     consts_host = jax.tree_util.tree_map(np.asarray, consts_b)
@@ -118,7 +114,7 @@ def run_batch(cfg, M, exp_dir, epochs_chunk=100, label="run"):
     data_b = jax.device_put(data_b, sh)
     carry_b = jax.device_put(carry_b, sh)
     consts_b = jax.device_put(consts_b, sh)
-    device_barrier(data_b.tr_coords)
+    jax.block_until_ready(data_b.tr_coords)
     t0 = t("device_put lanes", t0)
 
     fit_chunk = jitted_fit_chunk(spec, vmapped=True, lr_per_lane=True)
@@ -137,10 +133,10 @@ def run_batch(cfg, M, exp_dir, epochs_chunk=100, label="run"):
             lr_c = jnp.concatenate([lr_c, jnp.repeat(lr_c[:, -1:], pad, 1)], 1)
             active = active.at[c:].set(False)
         lr_c = jax.device_put(lr_c, sh)
-        device_barrier(lr_c)
+        jax.block_until_ready(lr_c)
         t0 = t(f"chunk {done}: lr upload", t0)
         carry_b, hist = fit_chunk(carry_b, consts_b, data_b, ids, lr_c, active)
-        device_barrier(carry_b["params"])
+        jax.block_until_ready(carry_b["params"])
         t0 = t(f"chunk {done}: device scan", t0)
         hists.append({k: np.asarray(
             v[:, :c] if not (k == "centers" and ce > 1) else v[:, : c // ce])

@@ -9,7 +9,6 @@ steps) or EM?" with on-device timings of each piece in isolation.
 """
 from __future__ import annotations
 
-import os
 import sys
 import time
 from functools import partial
@@ -17,11 +16,10 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 from st_dadk_tpu.utils.platform import (apply_platform_env,  # noqa: E402
-                                        device_barrier)
+                                        enable_compile_cache)
 apply_platform_env()
+enable_compile_cache()
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -40,12 +38,12 @@ REPS = 5
 
 def timed(label, fn, *args):
     out = fn(*args)
-    device_barrier(out)
+    jax.block_until_ready(out)
     ts = []
     for _ in range(REPS):
         t0 = time.time()
         out = fn(*args)
-        device_barrier(out)
+        jax.block_until_ready(out)
         ts.append(time.time() - t0)
     print(f"  {label:<46} {min(ts)*1000:9.1f} ms (min of {REPS})",
           flush=True)

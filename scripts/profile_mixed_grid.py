@@ -1,6 +1,5 @@
 #!/usr/bin/env python
-"""Attribute the mixed-grid heterogeneity cost (docs/BENCHMARKS.md
-"Stacked grid search").
+"""Attribute the mixed-grid heterogeneity cost (scripts/bench_mixed_grid.py).
 
 Two probes, both drift-controlled by interleaving arms in one process:
 
@@ -32,14 +31,11 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-import os  # noqa: E402
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", str(REPO / ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-
-from st_dadk_tpu.utils.platform import apply_platform_env  # noqa: E402
+from st_dadk_tpu.utils.platform import (apply_platform_env,  # noqa: E402
+                                        enable_compile_cache)
 
 apply_platform_env()
+enable_compile_cache()
 
 DATA = ["data/2a/2a_7.csv", "data/2a/2a_8.csv", "data/2a/2a_9.csv"]
 PATTERNS = ["corner", "uniform"]

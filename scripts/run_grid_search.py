@@ -6,7 +6,7 @@ sweep (run_grid_search.py:257-285): 6 data files x wendland x
 {uniform+fixed, kmeans_balanced+learnable} x random obs 10% corner. Edit in
 place like the reference, or pass --param_grid JSON.
 
-Execution: per config, the M experiment repeats run as ONE vmapped TPU
+Execution: per config, the M experiment repeats run as ONE vmapped
 program (engine=vmap) instead of a joblib process pool.
 """
 import argparse
@@ -18,8 +18,10 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from st_dadk_tpu.utils.platform import apply_platform_env  # noqa: E402
+from st_dadk_tpu.utils.platform import (apply_platform_env,  # noqa: E402
+                                        enable_compile_cache)
 apply_platform_env()
+enable_compile_cache()
 
 from st_dadk_tpu.config import ExperimentConfig
 from st_dadk_tpu.sweep.grid import run_grid_search
@@ -49,7 +51,7 @@ def config_filter(params):
 
 
 def main():
-    parser = argparse.ArgumentParser(description="Grid Search Runner (TPU)")
+    parser = argparse.ArgumentParser(description="Grid Search Runner")
     parser.add_argument("--config", type=str,
                         default="configs/config_st_interp.yaml")
     parser.add_argument("--output_dir", type=str, default=None)
@@ -81,7 +83,7 @@ def main():
     output_dir = Path(args.output_dir)
 
     print("=" * 80)
-    print("GRID SEARCH RUNNER (TPU)")
+    print("GRID SEARCH RUNNER")
     for k, v in param_grid.items():
         print(f"  {k}: {v}")
     print(f"  output: {output_dir}  engine: {args.engine}")

@@ -16,7 +16,7 @@ Two evaluation modes, chosen per dataset by what the snapshot ships
 2b ships neither train files NOR a solutions file (verified: data/2b/ holds
 only *_test.csv with empty z), so it cannot be scored against ground truth at
 all — its protocol evidence stays on the documented synthetic reconstruction
-(scripts/synthesize_2b.py, docs/BENCHMARKS.md).
+(scripts/synthesize_2b.py).
 
 Bivariate families (3a/3b carry two correlated fields z1/z2 per dataset) fit
 one model per field; solutions column = z_{2(i-1)+j} for dataset i field j
@@ -41,8 +41,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from st_dadk_tpu.utils.platform import apply_platform_env  # noqa: E402
+from st_dadk_tpu.utils.platform import (apply_platform_env,  # noqa: E402
+                                        enable_compile_cache)
 apply_platform_env()
+enable_compile_cache()
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
@@ -95,8 +97,7 @@ def fit_and_predict(cfg: ExperimentConfig, seed: int,
     centers, bw = init_spatial_centers(cfg.spatial_init_method,
                                        cfg.k_spatial_centers, train_coords,
                                        key=jax.random.PRNGKey(seed))
-    spec = spec_from_config(cfg)  # use_pallas follows the config default
-    # (OFF since round 3: XLA path ties/wins, results/dense_inference_r3.json)
+    spec = spec_from_config(cfg)
     params, consts = init_model(jax.random.PRNGKey(seed), spec, centers, bw)
     res = fit(cfg, spec, params, consts, train_ps, valid_ps, seed=seed)
 

@@ -26,15 +26,15 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
+from st_dadk_tpu.dataio.kaust import read_csv_columns  # noqa: E402
+from st_dadk_tpu.dataio.synth import synthesize, write_xytz_csv  # noqa: E402
 from st_dadk_tpu.utils.platform import apply_platform_env  # noqa: E402
 apply_platform_env()
 
@@ -69,44 +69,15 @@ def fit_2a_covariance(path_2a: Path, n_bins: int = 24, max_h: float = 0.5):
                 sigma2=s2, range_=a, nu=1.0, nugget=nugget)
 
 
-def synthesize(sites: np.ndarray, T: int, params: dict, seed: int
-               ) -> np.ndarray:
-    """Separable GRF: AR(1)-in-time Cholesky-colored spatial innovations.
-    Returns (T, S) float32 in the ORIGINAL scale."""
-    from scipy.special import kv
-
-    S = len(sites)
-    t0 = time.time()
-    d = np.linalg.norm(sites[:, None, :] - sites[None, :, :], axis=-1)
-    hh = np.maximum(d, 1e-12) * np.sqrt(2.0) / params["range_"]
-    C = params["sigma2"] * hh * kv(1, hh)
-    np.fill_diagonal(C, params["sigma2"] + params["nugget"])
-    C += 1e-6 * np.eye(S)
-    print(f"  covariance built ({time.time()-t0:.0f}s); cholesky...",
-          flush=True)
-    L = np.linalg.cholesky(C)
-    print(f"  cholesky done ({time.time()-t0:.0f}s)", flush=True)
-
-    rng = np.random.default_rng(seed)
-    phi = params["phi_t"]
-    z = np.empty((T, S), np.float64)
-    z[0] = L @ rng.standard_normal(S)
-    scale = np.sqrt(1.0 - phi * phi)
-    for t in range(1, T):
-        z[t] = phi * z[t - 1] + scale * (L @ rng.standard_normal(S))
-    out = params["mean"] + params["std"] * z
-    return out.astype(np.float32)
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--indices", type=int, nargs="+", default=[8])
     ap.add_argument("--T", type=int, default=100)
     ap.add_argument("--out_dir", type=str, default=str(REPO / "data" / "2b"))
     ap.add_argument("--fit_from", type=str,
-                    default="/root/reference/data/2a/2a_8.csv")
+                    default=str(REPO / "data" / "2a" / "2a_8.csv"))
     ap.add_argument("--sites_from", type=str,
-                    default="/root/reference/data/2b")
+                    default=str(REPO / "data" / "2b"))
     args = ap.parse_args()
 
     out_dir = Path(args.out_dir)
@@ -120,20 +91,13 @@ def main():
 
     for i in args.indices:
         test_csv = Path(args.sites_from) / f"2b_{i}_test.csv"
-        df = pd.read_csv(test_csv)
-        sites = (df[df.t == df.t.min()][["x", "y"]]
-                 .to_numpy(np.float64))
+        cols = read_csv_columns(test_csv)
+        first = cols["t"] == cols["t"].min()
+        sites = np.column_stack([cols["x"][first], cols["y"][first]])
         print(f"[synth2b] 2b_{i}: {len(sites)} sites x T={args.T}")
         z = synthesize(sites, args.T, params, seed=1000 + i)
-        rows = pd.DataFrame({
-            "x": np.tile(sites[:, 0], args.T),
-            "y": np.tile(sites[:, 1], args.T),
-            "t": np.repeat(np.arange(1, args.T + 1), len(sites)),
-            "z": z.ravel(),
-        })
-        out = out_dir / f"2b_{i}.csv"
-        rows.to_csv(out, index=False, float_format="%.6f")
-        print(f"[synth2b] wrote {out} ({len(rows)} rows)")
+        out = write_xytz_csv(out_dir / f"2b_{i}.csv", sites, z)
+        print(f"[synth2b] wrote {out} ({z.size} rows)")
 
 
 if __name__ == "__main__":

@@ -8,7 +8,7 @@ Same interface as the reference trainer (scripts/train_st_interp.py:3029-3212):
         [--start_exp_id A] [--end_exp_id B] [--skip-existing] [--engine vmap]
 
 Output tree: results/<YYYYMMDD>/<HHMMSS>_<tag>/{config.yaml, experiments/<i>/,
-summary/}. `--parallel`/`--n_jobs` are accepted for compatibility; on TPU the
+summary/}. `--parallel`/`--n_jobs` are accepted for compatibility; the
 parallel engine is `--engine vmap` (a vmapped, mesh-sharded experiment batch)
 instead of joblib processes.
 """
@@ -19,8 +19,10 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from st_dadk_tpu.utils.platform import apply_platform_env  # noqa: E402
+from st_dadk_tpu.utils.platform import (apply_platform_env,  # noqa: E402
+                                        enable_compile_cache)
 apply_platform_env()
+enable_compile_cache()
 
 from st_dadk_tpu.config import load_config
 from st_dadk_tpu.train.runner import run_multiple_experiments
@@ -36,7 +38,7 @@ def main():
     parser.add_argument("--parallel", action="store_true",
                         help="compat flag; maps to --engine vmap")
     parser.add_argument("--n_jobs", type=int, default=-1,
-                        help="compat flag (ignored on TPU)")
+                        help="compat flag (ignored)")
     parser.add_argument("--engine", type=str, default=None,
                         choices=["sequential", "vmap", "dp"],
                         help="experiment dispatch engine: sequential fits, "
@@ -72,7 +74,7 @@ def main():
     cfg.to_yaml(base_output_dir / "config.yaml")
 
     print("=" * 70)
-    print("MULTIPLE EXPERIMENT RUNNER (TPU)")
+    print("MULTIPLE EXPERIMENT RUNNER")
     print(f"tag={cfg.tag}  n_experiments={cfg.n_experiments}  "
           f"base_seed={cfg.base_seed}  engine={engine}")
     print(f"output: {base_output_dir}")

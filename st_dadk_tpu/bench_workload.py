@@ -1,23 +1,30 @@
 """The ONE definition of the headline bench workload.
 
 Workload = the reference's default config (STLABTW/ST-DADK
-configs/config_st_interp.yaml:7-85): dataset 2a_8 (T=100, S=1000),
+configs/config_st_interp.yaml:7-85): a 2a_8-shaped field (T=100, S=1000),
 multi-quantile tau={.05,.25,.5,.75,.95}, GMM-initialized learnable Wendland
 basis, AdamW 2e-2 + warmup/cosine + EMA, 500 epochs max with patience 50 —
 one full DA-STDK fit.
 
-bench.py (headline fits/hour), scripts/ab_paired.py (paired CRPS A/Bs) and
-scripts/profile_batch.py (stage profile) all measure THIS dict, so their
-numbers stay comparable; per-script deviations (tag, save_artifacts) are
-passed as explicit overrides at the call site instead of drifting copies.
+The field is generated inside the repository from the covariance fitted to
+the real 2a_8 (st_dadk_tpu/dataio/synth.py, `ensure_2a8_field`); callers
+generate it before the first fit.
+
+chip_smoke.py, bench.py (fits/hour), scripts/ab_paired.py (paired CRPS
+A/Bs) and scripts/profile_batch.py (stage profile) all use THIS dict, so
+their numbers stay comparable; per-script deviations (tag, save_artifacts)
+are passed as explicit overrides at the call site instead of drifting
+copies.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
+from st_dadk_tpu.dataio.synth import FIELD_2A8
+
 BENCH_WORKLOAD: Dict[str, Any] = dict(
     tag="bench",
-    data_file="data/2a/2a_8.csv",
+    data_file=FIELD_2A8,
     k_spatial_centers=[25, 81, 121],
     k_temporal_centers=[10, 15, 45],
     spatial_basis_function="wendland",

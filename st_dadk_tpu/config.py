@@ -15,8 +15,6 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-import yaml
-
 
 @dataclass
 class ExperimentConfig:
@@ -26,8 +24,8 @@ class ExperimentConfig:
     n_experiments: int = 10
     base_seed: int = 42
     n_jobs: int = 10              # kept for config compatibility (joblib knob in ref)
-    num_workers: int = 0          # no dataloader workers on TPU; kept for compat
-    device: str = "tpu"           # informational only; JAX picks the backend
+    num_workers: int = 0          # no dataloader workers; kept for compat
+    device: str = "gpu"           # informational only; JAX picks the backend
     config_id: Optional[int] = None  # set by grid-search tagging
 
     # -- model architecture ---------------------------------------------------
@@ -93,13 +91,12 @@ class ExperimentConfig:
     # last significant value — so a lane whose validation keeps improving by
     # less than d per patience-window stops after `patience` epochs instead
     # of training to the epoch cap (the mixed-grid critical path: smooth
-    # fields like 2a_9 improve genuinely-but-marginally for 500 epochs;
-    # docs/BENCHMARKS.md "mixed-grid x1.24"). Equivalent per-epoch slope
+    # fields like 2a_9 improve genuinely-but-marginally for 500 epochs).
+    # Equivalent per-epoch slope
     # threshold: d / patience. best-EMA checkpointing still tracks the TRUE
     # best on any improvement; only the stop decision is thresholded. At 0.0
     # the criterion reduces bit-exactly to the reference's any-improvement
-    # patience. Accuracy-affecting when on: see the Table-4.4 neutrality
-    # rerun in results/mixed_grid_r5.
+    # patience. Accuracy-affecting when on.
     early_stop_min_rel_delta: float = 0.0
     grad_clip: float = 0.0
     scheduler: Optional[str] = None            # None | 'cosine'
@@ -110,45 +107,30 @@ class ExperimentConfig:
     quantile_levels: List[float] = field(default_factory=lambda: [0.1, 0.5, 0.9])
     current_quantile: Optional[float] = None
 
-    # -- TPU-framework extras (no reference equivalent) ---------------------------
+    # -- framework extras (no reference equivalent) ------------------------------
     data_root: Optional[str] = None            # prefix for relative data_file paths
-    use_pallas: bool = False                   # opt-in Pallas fused kernel for dense inference.
-                                               # Default OFF since round 3: under the true
-                                               # device barrier it TIES the XLA-fused path at
-                                               # the reference shape (2.97 vs 2.96 ms / 131k
-                                               # pts, results/dense_inference_r3.json) and
-                                               # loses 11-32% at large (N, k)
-                                               # (results/large_n_crossover.json)
-    use_pallas_training: bool = False          # opt-in Pallas basis embed in the TRAINING forward
-                                               # (measured slower than XLA-fused jnp there; see ModelSpec)
-    use_fused_training: bool = False           # opt-in fused basis->layer-1 TRAINING kernel (see ModelSpec)
-    dropout_rng: str = "rbg"                   # dropout mask generator: 'rbg' (TPU-native
-                                               # hardware bit generator, ~25% faster scans) or
-                                               # 'threefry' (jax default, round-1 streams)
+    dropout_rng: str = "rbg"                   # dropout mask generator: 'rbg'
+                                               # (lax.rng_bit_generator; Philox
+                                               # on GPU) or 'threefry' (the jax
+                                               # default, round-1 streams).
+                                               # Which is faster on the GPU is
+                                               # open (ROADMAP Speed item 6)
     mesh_axis: str = "exp"                     # mesh axis name for the experiment batch
     packed_optimizer: bool = False             # run AdamW/EMA/clip on flat-packed param
-                                               # groups inside the epoch scan. Measured
-                                               # ~20% SLOWER on v5e (1277 vs 1058 ms per
-                                               # 100-epoch chunk): XLA already fuses the
-                                               # per-leaf update chains, and the pack's
-                                               # concat/slice traffic + lost fusions cost
-                                               # more than the saved kernel launches. Kept
-                                               # as a documented negative result / flag.
+                                               # groups inside the epoch scan (opt-in;
+                                               # unmeasured on the GPU, ROADMAP Design
+                                               # item 3)
     scan_unroll: int = 1                       # lax.scan unroll factor for the per-epoch
                                                # batch-step loop (larger scheduling blocks)
     train_dtype: str = "auto"                  # trunk activation dtype in training:
-                                               # 'bf16' halves the HBM activation traffic
-                                               # the fit scan is bound by (params, LN
-                                               # stats, losses, optimizer stay f32).
-                                               # 'auto' (default) flips to bf16 in the
-                                               # two measured winning regimes: wide lane
-                                               # batches (>16 lanes/device, 0.907/0.946
-                                               # paired at M=32; batch_engine.
+                                               # 'bf16' halves the activation traffic
+                                               # (params, LN stats, losses, optimizer
+                                               # stay f32). 'auto' (default) flips to
+                                               # bf16 for wide lane batches (batch_engine.
                                                # AUTO_BF16_LANES) and wide MLPs
-                                               # (sum(hidden_dims)>=1280, 0.88-0.92
-                                               # paired; st_interp.AUTO_BF16_HIDDEN_SUM,
-                                               # results/scaling_regimes_r5). f32
-                                               # elsewhere (bf16 is wall-neutral there).
+                                               # (st_interp.AUTO_BF16_HIDDEN_SUM); f32
+                                               # elsewhere. Both switch points await GPU
+                                               # measurements (ROADMAP Speed items 3, 5)
     k_spatial_pad: Optional[int] = None        # ragged-k lane stacking (SURVEY §7.1
                                                # step 6): pad this config's spatial basis
                                                # to k_spatial_pad total centers so grid
@@ -164,10 +146,8 @@ class ExperimentConfig:
                                                # program so early-stopped lanes stop costing
                                                # compute (results unchanged; lanes are
                                                # independent and stopped carries are frozen).
-                                               # OFF by default: at the bench model size the
-                                               # epoch scan is latency-bound, not lane-width-
-                                               # bound — measured ~0 gain (docs/BENCHMARKS.md);
-                                               # enable for much wider lane batches
+                                               # OFF by default (opt-in for much wider
+                                               # lane batches)
     compaction_epoch: int = 100                # full-width epochs before the first compaction
     save_plots: bool = True
     save_artifacts: bool = True                # predictions.npz / basis_info.npz / checkpoints
@@ -213,6 +193,7 @@ class ExperimentConfig:
 
     @classmethod
     def from_yaml(cls, path: str | Path) -> "ExperimentConfig":
+        import yaml
         with open(path, "r", encoding="utf-8") as f:
             d = yaml.safe_load(f) or {}
         return cls.from_dict(d)
@@ -224,6 +205,7 @@ class ExperimentConfig:
         return d
 
     def to_yaml(self, path: str | Path) -> None:
+        import yaml
         with open(path, "w", encoding="utf-8") as f:
             yaml.dump(self.to_dict(), f, default_flow_style=False)
 
@@ -232,16 +214,15 @@ class ExperimentConfig:
 
     # -- derived quantities ------------------------------------------------------
     def resolve_data_file(self) -> Path:
-        """Resolve the data file against data_root, the CWD, and the bundled
-        fallback roots (the reference's read-only data mount)."""
+        """Resolve the data file against data_root, the CWD, and the
+        repository root."""
         p = Path(self.data_file)
         if p.is_absolute():
             return p
         roots = []
         if self.data_root:
             roots.append(Path(self.data_root))
-        roots += [Path.cwd(), Path(__file__).resolve().parent.parent,
-                  Path("/root/reference")]
+        roots += [Path.cwd(), Path(__file__).resolve().parent.parent]
         for root in roots:
             cand = root / p
             if cand.exists():

@@ -1,7 +1,7 @@
-"""Static-shape point buffers: the TPU-native dataset representation.
+"""Static-shape point buffers: the dataset representation under jit.
 
 The reference materializes observed (t, s) points as a Python list of dict
-samples consumed by a torch DataLoader (train_st_interp.py:413-460). On TPU
+samples consumed by a torch DataLoader (train_st_interp.py:413-460). Under jit
 everything under jit needs static shapes, so a dataset is a `PointSet`: dense
 arrays of per-point features plus a 0/1 weight vector. Padding points carry
 weight 0 and all weighted reductions reproduce the reference's ragged means

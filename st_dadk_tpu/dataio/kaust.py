@@ -1,10 +1,10 @@
 """KAUST competition CSV ingest.
 
 Behavioral parity with stnf/dataio/kaust_loader.py, re-implemented with
-vectorized pandas/numpy (the reference fills the dense matrix with a Python
+vectorized numpy (the reference fills the dense matrix with a Python
 `iterrows` loop, kaust_loader.py:59-63, which costs seconds per 100k-row file
-and is re-paid once per experiment repeat; here ingest is one factorize + one
-fancy assignment).
+and is re-paid once per experiment repeat; here ingest is one site
+factorization + one fancy assignment).
 
 Contracts preserved:
   - sites are unique (x, y) pairs in order of first appearance
@@ -24,16 +24,35 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import numpy as np
-import pandas as pd
 
 
-def _site_index(df: pd.DataFrame) -> Tuple[np.ndarray, np.ndarray, Dict]:
-    """Return (site_codes per row, coords (S,2) float32, site_to_idx dict)."""
-    mi = pd.MultiIndex.from_arrays([df["x"].to_numpy(), df["y"].to_numpy()])
-    codes, uniques = mi.factorize()          # first-appearance order
-    coords = np.asarray(uniques.to_frame().to_numpy(), dtype=np.float32)
-    site_to_idx = {(float(x), float(y)): i for i, (x, y) in enumerate(uniques)}
-    return np.asarray(codes), coords, site_to_idx
+def read_csv_columns(path: str | Path) -> Dict[str, np.ndarray]:
+    """Numeric CSV with a header row -> {column name: float64 column}.
+    Header names are stripped of spaces and quotes; empty fields read NaN."""
+    with open(path, "r", encoding="utf-8") as f:
+        header = f.readline()
+    names = [c.strip().strip('"') for c in header.strip().split(",")]
+    data = np.genfromtxt(path, delimiter=",", skip_header=1,
+                         dtype=np.float64, ndmin=2)
+    if data.size == 0:
+        data = np.zeros((0, len(names)))
+    return {n: data[:, i] for i, n in enumerate(names)}
+
+
+def _site_index(x: np.ndarray, y: np.ndarray
+                ) -> Tuple[np.ndarray, np.ndarray, Dict]:
+    """Return (site_codes per row, coords (S,2) float32, site_to_idx dict);
+    sites are numbered in order of first appearance."""
+    xy = np.column_stack([x, y]).astype(np.float64)
+    uniq, first, inverse = np.unique(xy, axis=0, return_index=True,
+                                     return_inverse=True)
+    order = np.argsort(first, kind="stable")   # first-appearance order
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    codes = rank[np.asarray(inverse).ravel()]
+    uniques = uniq[order]
+    site_to_idx = {(float(a), float(b)): i for i, (a, b) in enumerate(uniques)}
+    return codes, uniques.astype(np.float32), site_to_idx
 
 
 def load_kaust_csv_single(
@@ -49,7 +68,7 @@ def load_kaust_csv_single(
         metadata: dict with normalization stats etc.
 
     Uses the native C++ one-pass ingest when built (native/ingest.cpp);
-    otherwise the vectorized pandas path. Both produce identical outputs.
+    otherwise the vectorized numpy path. Both produce identical outputs.
     """
     from st_dadk_tpu.dataio.native import load_csv_native
 
@@ -67,30 +86,29 @@ def load_kaust_csv_single(
             print(f"[INFO] Total sites: {S}")
             print(f"[INFO] Time range: 1 ~ {T}")
     else:
-        df = pd.read_csv(data_path)
-        df.columns = [c.strip().strip('"') for c in df.columns]
+        cols = read_csv_columns(data_path)
+        n_rows = len(cols["x"])
         if verbose:
-            print(f"[INFO] Loaded data: {len(df)} rows")
+            print(f"[INFO] Loaded data: {n_rows} rows")
 
-        codes, coords, site_to_idx = _site_index(df)
+        codes, coords, site_to_idx = _site_index(cols["x"], cols["y"])
         S = coords.shape[0]
         if verbose:
             print(f"[INFO] Total sites: {S}")
 
-        if "t" in df.columns:
-            t_vals = df["t"].to_numpy()
-            T = int(t_vals.max())
-            t_idx = t_vals.astype(np.int64) - 1
+        if "t" in cols:
+            t_idx = cols["t"].astype(np.int64) - 1
+            T = int(t_idx.max()) + 1 if n_rows else 1
             if verbose:
                 print(f"[INFO] Time range: 1 ~ {T}")
         else:
             # spatial-only dataset (1a/3a families) — single time slice
             T = 1
-            t_idx = np.zeros(len(df), dtype=np.int64)
+            t_idx = np.zeros(n_rows, dtype=np.int64)
 
         z_data = np.full((T, S), np.nan, dtype=np.float32)
-        if "z" in df.columns:
-            z_data[t_idx, codes] = df["z"].to_numpy(dtype=np.float32)
+        if "z" in cols:
+            z_data[t_idx, codes] = cols["z"].astype(np.float32)
 
     # z_mean/z_std are always present (0/1 when not normalizing) — same
     # contract as load_kaust_csv; consumers like predictions_to_csv rely on it
@@ -123,38 +141,36 @@ def load_kaust_csv(
 
     Returns (z_train (T_tr,S), z_test (T_te,S; NaN), coords, site_to_idx, metadata).
     """
-    df_train = pd.read_csv(train_path)
-    df_test = pd.read_csv(test_path)
-    df_train.columns = [c.strip().strip('"') for c in df_train.columns]
-    df_test.columns = [c.strip().strip('"') for c in df_test.columns]
+    tr = read_csv_columns(train_path)
+    te = read_csv_columns(test_path)
+    n_tr = len(tr["x"])
     if verbose:
-        print(f"[INFO] Loaded train: {len(df_train)} rows")
-        print(f"[INFO] Loaded test: {len(df_test)} rows")
+        print(f"[INFO] Loaded train: {n_tr} rows")
+        print(f"[INFO] Loaded test: {len(te['x'])} rows")
 
-    combined = pd.concat([df_train[["x", "y"]], df_test[["x", "y"]]],
-                         ignore_index=True)
-    codes_all, coords, site_to_idx = _site_index(combined)
+    codes_all, coords, site_to_idx = _site_index(
+        np.concatenate([tr["x"], te["x"]]), np.concatenate([tr["y"], te["y"]]))
     S = coords.shape[0]
-    codes_train = codes_all[: len(df_train)]
+    codes_train = codes_all[:n_tr]
     if verbose:
         print(f"[INFO] Total sites: {S}")
 
-    has_t = "t" in df_train.columns
+    has_t = "t" in tr
     if has_t:
-        T_tr = int(df_train["t"].max())
-        T_te_start = int(df_test["t"].min())
-        T_te_end = int(df_test["t"].max())
-        t_idx_train = df_train["t"].to_numpy(np.int64) - 1
+        T_tr = int(tr["t"].max())
+        T_te_start = int(te["t"].min())
+        T_te_end = int(te["t"].max())
+        t_idx_train = tr["t"].astype(np.int64) - 1
         if verbose:
             print(f"[INFO] Train time range: 1 ~ {T_tr}")
             print(f"[INFO] Test time range: {T_te_start} ~ {T_te_end}")
     else:
         T_tr, T_te_start, T_te_end = 1, 1, 1
-        t_idx_train = np.zeros(len(df_train), dtype=np.int64)
+        t_idx_train = np.zeros(n_tr, dtype=np.int64)
 
     z_train = np.full((T_tr, S), np.nan, dtype=np.float32)
-    if "z" in df_train.columns:
-        z_train[t_idx_train, codes_train] = df_train["z"].to_numpy(np.float32)
+    if "z" in tr:
+        z_train[t_idx_train, codes_train] = tr["z"].astype(np.float32)
 
     T_te = T_te_end - T_te_start + 1
     z_test = np.full((T_te, S), np.nan, dtype=np.float32)
@@ -215,16 +231,20 @@ def predictions_to_csv(
 ) -> None:
     """Competition submission writer (ref kaust_loader.py:518-565),
     vectorized over the test rows."""
-    df_test = pd.read_csv(test_csv_path)
+    te = read_csv_columns(test_csv_path)
     if denormalize:
         y_pred = y_pred * z_std + z_mean
 
-    t = df_test["t"].to_numpy(np.int64) if "t" in df_test.columns else np.ones(len(df_test), np.int64)
-    t_rel = t - t.min()
-    site_idx = np.array([site_to_idx[(float(r.x), float(r.y))]
-                         for r in df_test.itertuples()], dtype=np.int64)
-    z_hat = np.full(len(df_test), np.nan, dtype=np.float64)
+    n = len(te["x"])
+    t = te["t"].astype(np.int64) if "t" in te else np.ones(n, np.int64)
+    t_rel = t - t.min() if n else t
+    site_idx = np.array([site_to_idx[(float(x), float(y))]
+                         for x, y in zip(te["x"], te["y"])], dtype=np.int64)
+    z_hat = np.full(n, np.nan, dtype=np.float64)
     in_range = t_rel < len(y_pred)
     z_hat[in_range] = y_pred[t_rel[in_range], site_idx[in_range]]
-    pd.DataFrame({"z": z_hat}).to_csv(output_path, index=False)
+    with open(output_path, "w", encoding="utf-8") as f:
+        f.write("z\n")
+        f.writelines(f"{float(v)!r}\n" if np.isfinite(v) else "\n"
+                     for v in z_hat)
     print(f"[INFO] Saved predictions to {output_path}")

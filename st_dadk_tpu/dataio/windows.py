@@ -1,7 +1,7 @@
 """Sliding-window forecasting datasets (the reference's second workload
 style, stnf/dataio/kaust_loader.py:237-515).
 
-The reference materializes windows lazily via a torch Dataset; on TPU the
+The reference materializes windows lazily via a torch Dataset; under jit the
 natural form is dense stacked arrays with static shapes: all windows are
 gathered once into (W, L, n_obs, 1) / (W, H, n_obs, 1) tensors (tiny at these
 dataset sizes) plus optional covariates, ready to batch or vmap over.

@@ -51,23 +51,9 @@ class ModelSpec:
     spatial_learnable: bool = False
     output_dim: int = 1
     use_delta_reparameterization: bool = False
-    use_pallas: bool = False
-    # opt-in: route the TRAINING forward's basis embed through the Pallas
-    # kernel too. Measured on v5e (docs/BENCHMARKS.md): the opaque kernel
-    # call breaks XLA fusion inside the epoch scan and is ~27% SLOWER than
-    # the jnp embed there (1.345s vs 1.057s per 100-epoch vmapped chunk), so
-    # training defaults to jnp; use_pallas keeps governing the fused
-    # dense-inference path, where the kernel wins.
-    use_pallas_training: bool = False
-    # opt-in: fused basis->layer-1 kernel in the TRAINING forward too.
-    # Measured on v5e (docs/BENCHMARKS.md): neutral at small batches and
-    # ~15% slower at N >= 32k (the backward re-does the g @ W^T tile matmul
-    # in two kernels), so training defaults to the fully XLA-fused jnp
-    # graph; inference always uses the fused kernel.
-    use_fused_training: bool = False
     # activation dtype for the training trunk: 'bf16' materializes the MLP
-    # activations (and their cotangents) in bfloat16, halving the HBM traffic
-    # the fit scan is bound by at this model size. Params, LayerNorm
+    # activations (and their cotangents) in bfloat16, halving their memory
+    # traffic. Params, LayerNorm
     # statistics, the loss, and the optimizer stay f32 (standard mixed
     # precision); the head returns f32.
     compute_dtype: str = "f32"
@@ -93,31 +79,20 @@ class ModelSpec:
         return self.use_delta_reparameterization and self.output_dim > 1
 
 
-# train_dtype='auto' size trigger: the bf16 trunk's halved activation
-# traffic wins once the MLP is wide enough — measured paired wall ratios
-# vs f32 at M=8 (results/scaling_regimes_r5/report.json, drift-controlled):
-# sum(hidden)=640 (reference) 0.967; 1280 (2x) 0.919; 2560 (4x) 0.881;
-# 5120 (8x) 0.881 — a monotone regime from 2x up, so 'auto' flips at the
-# measured 2x crossover. CRPS-neutrality of the bf16 trunk is measured at
-# the reference size and M=32 (docs/BENCHMARKS.md); at larger models the
-# same activations-only mechanism applies (params/optimizer stay f32) but
-# re-validate per workload. Thresholds are per-chip (v5e); see also the
-# lane-width trigger batch_engine.AUTO_BF16_LANES.
+# train_dtype='auto' size trigger: the bf16 trunk (halved activation
+# traffic) is used once sum(hidden_dims) reaches this width. The value was
+# set on another accelerator and is kept so behaviour does not change; the
+# GPU measurement that should set it is ROADMAP Speed item 5 (with the
+# lane-width trigger batch_engine.AUTO_BF16_LANES, Speed item 3).
 AUTO_BF16_HIDDEN_SUM = 1280
 
 
-def spec_from_config(cfg: ExperimentConfig, use_pallas: Optional[bool] = None) -> ModelSpec:
+def spec_from_config(cfg: ExperimentConfig) -> ModelSpec:
     # ragged-k stacking: the compiled program sees one padded resolution of
     # k_spatial_pad centers; the real multi-resolution layout lives in the
     # lane's cfg (inits, finalize slicing)
     k_spatial = (tuple(cfg.k_spatial_centers) if cfg.k_spatial_pad is None
                  else (int(cfg.k_spatial_pad),))
-    # the fused Pallas kernels (inference AND training) never consume
-    # consts['spatial_k_mask'], so on ragged-k padded lanes they would let
-    # junk columns leak into phi / junk weight rows receive gradients —
-    # breaking pad_lane_model's tracks-own-shape invariant. Ragged-k always
-    # routes through the mask-aware plain forward.
-    ragged = cfg.k_spatial_pad is not None
     return ModelSpec(
         p=cfg.p_covariates,
         k_spatial_centers=k_spatial,
@@ -129,13 +104,8 @@ def spec_from_config(cfg: ExperimentConfig, use_pallas: Optional[bool] = None) -
         spatial_learnable=cfg.spatial_learnable,
         output_dim=cfg.output_dim,
         use_delta_reparameterization=cfg.use_delta_reparameterization,
-        use_pallas=(not ragged
-                    and (cfg.use_pallas if use_pallas is None else use_pallas)),
-        use_pallas_training=cfg.use_pallas_training and not ragged,
-        use_fused_training=cfg.use_fused_training and not ragged,
-        # 'auto' resolves by MODEL SIZE here (the measured bf16 regime:
-        # results/scaling_regimes_r5); the batch engine additionally flips
-        # wide-lane batches (batch_engine._apply_auto_train_dtype)
+        # 'auto' resolves by MODEL SIZE here; the batch engine additionally
+        # flips wide-lane batches (batch_engine._apply_auto_train_dtype)
         compute_dtype=(("bf16" if sum(cfg.hidden_dims)
                         >= AUTO_BF16_HIDDEN_SUM else "f32")
                        if cfg.train_dtype == "auto" else cfg.train_dtype),
@@ -223,13 +193,8 @@ def spatial_params(spec: ModelSpec, params: Params, consts: Consts
 def _embed(spec: ModelSpec, params: Params, consts: Consts,
            coords: jax.Array, t: jax.Array) -> jax.Array:
     centers, bandwidths = spatial_params(spec, params, consts)
-    if spec.use_pallas and spec.use_pallas_training:
-        from st_dadk_tpu.ops.pallas_basis import spatial_basis_embed_pallas
-        phi = spatial_basis_embed_pallas(coords, centers, bandwidths,
-                                         spec.spatial_basis_function)
-    else:
-        phi = spatial_basis_embed(coords, centers, bandwidths,
-                                  spec.spatial_basis_function)
+    phi = spatial_basis_embed(coords, centers, bandwidths,
+                              spec.spatial_basis_function)
     if "spatial_k_mask" in consts:
         # ragged-k lane stacking: zero the padded junk columns so neither the
         # first-layer weight rows nor the junk centers receive gradients —
@@ -292,82 +257,6 @@ def trunk(spec: ModelSpec, params: Params, features: jax.Array,
     return h
 
 
-def _trunk_from_h1(spec: ModelSpec, params: Params, h1: jax.Array,
-                   train: bool = False,
-                   rng: Optional[jax.Array] = None) -> jax.Array:
-    """Hidden MLP given the first layer's pre-norm output; mirrors `trunk`
-    exactly (same LayerNorm/ReLU/dropout structure, mask source, and
-    compute_dtype handling), just skipping the first Linear."""
-    cd = _cdtype(spec)
-    mlp = params["mlp"]
-    h = h1.astype(cd)
-    use_dropout = train and spec.dropout > 0.0
-    if use_dropout:
-        if rng is None:
-            raise ValueError("rng required for dropout in train mode")
-        masks = _dropout_masks(spec, rng, h1.shape[0])
-    for i in range(len(spec.hidden_dims)):
-        if i > 0:
-            lin = mlp[f"linear_{i}"]
-            h = h @ lin["w"].astype(cd) + lin["b"].astype(cd)
-        if spec.layernorm:
-            ln = mlp[f"ln_{i}"]
-            h32 = h.astype(jnp.float32)
-            mean = jnp.mean(h32, axis=-1, keepdims=True)
-            var = jnp.var(h32, axis=-1, keepdims=True)
-            h = ((h32 - mean) * jax.lax.rsqrt(var + 1e-5)).astype(cd)
-            h = h * ln["scale"].astype(cd) + ln["bias"].astype(cd)
-        h = jax.nn.relu(h)
-        if use_dropout:
-            h = jnp.where(masks[i], h / jnp.asarray(1.0 - spec.dropout, cd),
-                          jnp.zeros((), cd))
-    return h
-
-
-def forward_inference_fused(spec: ModelSpec, params: Params,
-                            consts: Consts, coords: jax.Array,
-                            t: jax.Array) -> jax.Array:
-    """Inference forward with the Pallas fused basis->layer-1 kernel: the
-    (N, k) basis matrix never touches HBM (ops.pallas_fused). Eval-mode only
-    (no dropout); requires p_covariates == 0 and a TPU backend — callers
-    fall back to `forward` otherwise. Output equals forward(train=False)."""
-    from st_dadk_tpu.ops.pallas_fused import fused_basis_matmul
-
-    centers, bandwidths = spatial_params(spec, params, consts)
-    mlp = params["mlp"]
-    w0 = mlp["linear_0"]["w"]
-    k_s = spec.k_spatial
-    h = fused_basis_matmul(coords, centers, bandwidths, w0[:k_s],
-                           spec.spatial_basis_function)
-    psi = temporal_basis_embed(t, consts["temporal_centers"],
-                               consts["temporal_bandwidths"])
-    h = h + psi @ w0[k_s:] + mlp["linear_0"]["b"]
-    h = _trunk_from_h1(spec, params, h, train=False)
-    return head(spec, params, h)
-
-
-def forward_train_fused(spec: ModelSpec, params: Params, consts: Consts,
-                        coords: jax.Array, t: jax.Array, train: bool,
-                        rng: Optional[jax.Array]) -> jax.Array:
-    """Differentiable forward with the fused basis->layer-1 TRAINING kernel
-    (custom VJP in ops.pallas_fused): neither phi (N, k) nor the backward's
-    g @ W^T cotangent ever reaches HBM. Requires p_covariates == 0 and a
-    hidden layer; dropout RNG sequence matches the unfused `trunk`."""
-    from st_dadk_tpu.ops.pallas_fused import fused_spatial_first_layer
-
-    centers, bandwidths = spatial_params(spec, params, consts)
-    mlp = params["mlp"]
-    w0 = mlp["linear_0"]["w"]
-    k_s = spec.k_spatial
-    h = fused_spatial_first_layer(coords, centers, bandwidths, w0[:k_s],
-                                  spec.spatial_basis_function)
-    psi = temporal_basis_embed(t, consts["temporal_centers"],
-                               consts["temporal_bandwidths"])
-    h = h + psi @ w0[k_s:] + mlp["linear_0"]["b"]
-    h = _trunk_from_h1(spec, params, h, train=train, rng=rng)
-    return head(spec, params, h)
-
-
 def head(spec: ModelSpec, params: Params, h: jax.Array) -> jax.Array:
     mlp = params["mlp"]
     if spec.delta_head:
@@ -380,15 +269,7 @@ def head(spec: ModelSpec, params: Params, h: jax.Array) -> jax.Array:
 def forward(spec: ModelSpec, params: Params, consts: Consts,
             X: Optional[jax.Array], coords: jax.Array, t: jax.Array,
             train: bool = False, rng: Optional[jax.Array] = None) -> jax.Array:
-    """yhat(s, t): (B, output_dim).
-
-    On TPU (use_pallas) with no covariates, the first layer runs through the
-    differentiable fused basis->matmul kernel (forward_train_fused); the
-    result equals the unfused path up to f32 accumulation order."""
-    if (spec.use_pallas and spec.use_fused_training and spec.p == 0
-            and spec.hidden_dims):
-        return forward_train_fused(spec, params, consts, coords, t,
-                                   train=train, rng=rng)
+    """yhat(s, t): (B, output_dim)."""
     phi, psi = _embed(spec, params, consts, coords, t)
     if X is not None and spec.p > 0:
         features = jnp.concatenate([X, phi, psi], axis=-1)

@@ -14,9 +14,8 @@ Math parity targets (reference, PyTorch):
     bandwidth = 2.5 x spacing (st_interp.py:152-185); temporal grids likewise
     on [0,1] (st_interp.py:557-581).
 
-This module is the jnp reference implementation; the Pallas TPU kernel in
-`st_dadk_tpu.ops.pallas_basis` must match it bit-for-bit in f32 (modulo
-matmul-free elementwise ordering).
+Plain jnp: XLA fuses the subtract / sqrt / polynomial chain of the spatial
+embed into one elementwise loop ahead of the first-layer matrix product.
 """
 from __future__ import annotations
 
@@ -73,11 +72,11 @@ def spatial_basis_embed(
     bandwidths: jax.Array,        # (k,)
     basis_function: str = "wendland",
 ) -> jax.Array:
-    """phi(s): (N, k) basis matrix. jnp reference for the Pallas kernel.
+    """phi(s): (N, k) basis matrix.
 
     Distances are computed elementwise (dx^2 + dy^2) rather than via a
-    cdist-style matmul: with only 2 input dims the MXU buys nothing and the
-    elementwise form is exactly what the Pallas kernel does on the VPU.
+    cdist-style matmul: with only 2 input dims a matrix product buys nothing
+    and the elementwise form fuses with the basis polynomial.
     """
     calibration = CALIBRATION_FACTORS[basis_function]
     dx = coords[:, 0:1] - centers[None, :, 0]    # (N, k)

@@ -14,7 +14,7 @@ Parity targets in the reference:
     (train_st_interp.py:169-248).
 
 All on-device losses accept an optional `weights` vector so padded (static
-shape) TPU batches reproduce the reference's ragged-batch means exactly:
+shape) batches reproduce the reference's ragged-batch means exactly:
 weighted_mean(x, w) == mean(x[w > 0]) when w is 0/1.
 """
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Data-parallel training step (shard_map + pmean over ICI).
+"""Data-parallel training step (shard_map + pmean over the cards of a host).
 
 The reference has no gradient-sync parallelism (its models are tiny; SURVEY.md
-section 2.4 row 3) — this is the natural free capability on a TPU slice for
-large single fits: the minibatch is sharded over the 'data' mesh axis, each
+section 2.4 row 3) — this is the natural free capability on a multi-GPU host
+for large single fits: the minibatch is sharded over the 'data' mesh axis, each
 device computes gradients on its shard, and gradients/losses are pmean-ed
 (DDP-style per-replica-mean semantics). Parameters, optimizer state, and EMA
 stay replicated, so the update is identical on every replica.

@@ -1,7 +1,6 @@
 """Tensor parallelism over the basis dimension (shard_map + psum).
 
-For large-N fits with many basis centers (the 3a/3b-scale regime in
-BASELINE.json), the (N, k) basis matrix and the k x h first MLP layer
+For large-N fits with many basis centers (the 3a/3b-scale regime), the (N, k) basis matrix and the k x h first MLP layer
 dominate memory and FLOPs. Sharding the center dimension k over a 'tp' mesh
 axis makes both the basis construction and the first matmul local:
 
@@ -11,7 +10,7 @@ axis makes both the basis construction and the first matmul local:
 
 The remaining MLP layers are small and run replicated. The reference has no
 equivalent (single-process torch; SURVEY.md section 2.4); this is the natural
-TPU scaling path for the basis axis. Exactness vs the unsharded forward is
+multi-card scaling path for the basis axis. Exactness vs the unsharded forward is
 tested on the virtual 8-device CPU mesh (tests/test_tensor_parallel.py).
 
 TP params use an explicit layout that separates the first layer into

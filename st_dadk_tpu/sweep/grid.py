@@ -19,9 +19,6 @@ import json
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional
 
-import pandas as pd
-import yaml
-
 from st_dadk_tpu.config import ExperimentConfig
 from st_dadk_tpu.train.runner import run_multiple_experiments
 
@@ -143,6 +140,7 @@ def save_experiment_results(all_results: List[Optional[Dict[str, Any]]],
                     detail_records[key] = rec
                 detail_records[key][metric] = value
 
+    import pandas as pd
     df_summary = pd.DataFrame(summary_records)
     df_summary.to_csv(output_dir / "grid_search_summary.csv", index=False)
     df_detail = pd.DataFrame(list(detail_records.values()))
@@ -177,6 +175,7 @@ def run_grid_search(
     configs = generate_config_combinations(base_config, param_grid, filter_fn)
     n_configs = len(configs)
 
+    import yaml
     for config in configs:
         config_dir = output_dir / config["tag"]
         config_dir.mkdir(parents=True, exist_ok=True)

@@ -44,7 +44,7 @@ from st_dadk_tpu.models.st_interp import (
 from st_dadk_tpu.ops.init_centers import init_spatial_centers
 from st_dadk_tpu.ops.losses import check_loss_np, compute_crps_multi_quantile
 from st_dadk_tpu.train.loop import FitResult, fit, predict
-from st_dadk_tpu.utils.io import save_json
+from st_dadk_tpu.utils.io import save_json, write_csv
 
 
 def _flatten_params(params: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -283,7 +283,7 @@ class ExperimentSetup:
         self.test_ps = pointset_from_mask(self.z_full, self.coords,
                                           self.test_mask)
 
-        self.spec = spec_from_config(cfg, use_pallas=_pallas_available(cfg))
+        self.spec = spec_from_config(cfg)
         self.cfg = cfg
         self.params = None
         self.consts = None
@@ -579,15 +579,13 @@ def finalize_experiment(cfg: ExperimentConfig, setup: "ExperimentSetup",
     if write_artifacts:
         save_json(results, output_dir / "results.json")
 
-        # training_history.csv
-        import pandas as pd
-        pd.DataFrame({
+        write_csv(output_dir / "training_history.csv", {
             "epoch": list(range(1, len(history["train_loss"]) + 1)),
             "train_loss": history["train_loss"],
             "val_loss": history["val_loss"],
             "val_rmse": history["val_rmse"],
             "lr": history["lr"],
-        }).to_csv(output_dir / "training_history.csv", index=False)
+        })
 
     # -- artifacts ------------------------------------------------------------
     split_predictions = None
@@ -680,9 +678,3 @@ def _final_basis(spec: ModelSpec, params: Dict[str, Any],
                 np.exp(np.asarray(params["basis"]["log_bandwidths"])))
     return init_centers, init_bw
 
-
-def _pallas_available(cfg: ExperimentConfig) -> bool:
-    if not cfg.use_pallas:
-        return False
-    import jax as _jax
-    return _jax.default_backend() == "tpu"

@@ -2,11 +2,10 @@
 
 The model's param pytree has ~15 small leaves (basis centers/log-bandwidths +
 per-layer Linear/LayerNorm weights + the head). Updating them leaf-by-leaf
-inside the epoch scan costs ~100 tiny VPU kernels per optimizer step (AdamW
-m/v/update x 15, EMA x 15, execute-masking selects x 45, per-leaf clip-norm
-partials), and the fit at this model size is kernel-LATENCY-bound, not
-FLOP-bound (docs/BENCHMARKS.md: per-epoch scan cost barely changes with lane
-count). Packing each parameter GROUP into one contiguous vector turns all of
+inside the epoch scan costs ~100 tiny elementwise kernels per optimizer step
+(AdamW m/v/update x 15, EMA x 15, execute-masking selects x 45, per-leaf
+clip-norm partials), and a fit at this model size can be kernel-LATENCY-bound
+rather than FLOP-bound. Packing each parameter GROUP into one contiguous vector turns all of
 that into a handful of ops on two flat buffers:
 
   - group 'basis' (iff spatial_learnable): [centers.ravel(), log_bandwidths]

@@ -1,8 +1,8 @@
 """Multi-experiment orchestration + aggregation.
 
 Replaces the reference's joblib process fan-out (train_st_interp.py:2914-3026)
-with sequential dispatch of jitted fits (each experiment is seconds on TPU; XLA
-programs are cached across repeats since shapes/specs match) — and, when
+with sequential dispatch of jitted fits (XLA programs are cached across
+repeats since shapes/specs match) — and, when
 requested, the vmapped batch engine (st_dadk_tpu.train.batch_engine) that runs
 all repeats as one device program.
 
@@ -23,7 +23,7 @@ import numpy as np
 
 from st_dadk_tpu.config import ExperimentConfig
 from st_dadk_tpu.train.experiment import run_single_experiment
-from st_dadk_tpu.utils.io import save_json
+from st_dadk_tpu.utils.io import save_json, write_csv
 
 AGG_METRICS = ["train_mse", "train_mae", "train_rmse",
                "valid_mse", "valid_mae", "valid_rmse",
@@ -79,20 +79,21 @@ def aggregate_results(all_results: List[Dict[str, Any]], summary_dir: Path
 
     save_json(summary, summary_dir / "summary_statistics.json")
 
-    # cross-experiment maps (ref :2869-2873); best-effort, figures only
-    try:
-        from st_dadk_tpu.viz.plots import (create_averaged_spatial_mse,
-                                           create_observation_density_map)
-        exp_dirs = [Path(r["config"]["output_dir"]) for r in all_results
-                    if isinstance(r.get("config"), dict)
-                    and r["config"].get("output_dir")]
-        if exp_dirs:
+    # cross-experiment maps (ref :2869-2873); best-effort, figures only,
+    # and only when the experiments ran with plots on
+    exp_dirs = [Path(r["config"]["output_dir"]) for r in all_results
+                if isinstance(r.get("config"), dict)
+                and r["config"].get("output_dir")
+                and r["config"].get("save_plots", True)]
+    if exp_dirs:
+        try:
+            from st_dadk_tpu.viz.plots import (create_averaged_spatial_mse,
+                                               create_observation_density_map)
             create_averaged_spatial_mse(exp_dirs, summary_dir)
             create_observation_density_map(exp_dirs, summary_dir)
-    except Exception as e:
-        print(f"[WARNING] summary figures failed: {e}")
+        except Exception as e:
+            print(f"[WARNING] summary figures failed: {e}")
 
-    import pandas as pd
     df_data: Dict[str, Any] = {
         "experiment_id": [r.get("experiment_id", i + 1)
                           for i, r in enumerate(all_results)]}
@@ -101,8 +102,7 @@ def aggregate_results(all_results: List[Dict[str, Any]], summary_dir: Path
     for name, values in metrics_data.items():
         if len(values) == n:
             df_data[name] = values
-    pd.DataFrame(df_data).to_csv(summary_dir / "all_experiments.csv",
-                                 index=False)
+    write_csv(summary_dir / "all_experiments.csv", df_data)
     return summary
 
 

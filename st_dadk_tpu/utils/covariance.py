@@ -4,8 +4,8 @@ scripts/synthesize_2b.py (spatio-temporal (T, S) fields) and
 scripts/synthesize_1b3b.py (single spatial fields, 2-D or 3-D coords) both
 reduce their data to (pair distance, empirical correlation product) samples;
 the binning + Matern curve fit + nugget convention lives HERE so the two
-reconstructions cannot drift apart (they are compared against each other in
-docs/BENCHMARKS.md's family table).
+reconstructions cannot drift apart. st_dadk_tpu.dataio.synth draws fields from
+the fitted parameters.
 """
 from __future__ import annotations
 

@@ -1,9 +1,12 @@
-"""JSON-safe result persistence (ref train_st_interp.py:964-986 save_results)."""
+"""Result persistence: JSON (ref train_st_interp.py:964-986 save_results)
+and column CSVs."""
 from __future__ import annotations
 
+import csv
 import json
+import math
 from pathlib import Path
-from typing import Any
+from typing import Any, Dict, Sequence
 
 import numpy as np
 
@@ -33,3 +36,24 @@ def save_json(obj: Any, path: str | Path) -> None:
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     with open(path, "w", encoding="utf-8") as f:
         json.dump(json_safe(obj), f, indent=2)
+
+
+def write_csv(path: str | Path, columns: Dict[str, Sequence[Any]]) -> None:
+    """Write equal-length columns as a CSV with a header row (the layout
+    pandas' `DataFrame(columns).to_csv(index=False)` gives: floats by repr,
+    NaN as an empty field)."""
+    names = list(columns)
+    n = len(columns[names[0]]) if names else 0
+
+    def cell(v):
+        v = json_safe(v)
+        if isinstance(v, float) and math.isnan(v):
+            return ""
+        return v
+
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w", encoding="utf-8", newline="") as f:
+        w = csv.writer(f, lineterminator="\n")
+        w.writerow(names)
+        for i in range(n):
+            w.writerow([cell(columns[c][i]) for c in names])

@@ -24,7 +24,7 @@ CFG_DICT = dict(
     grad_clip=10.0, regression_type="mean",
     obs_method="site-wise", obs_ratio=0.5, obs_spatial_pattern="uniform",
     split_method="random", train_ratio=0.8,
-    n_experiments=N_EXPERIMENTS, base_seed=700, use_pallas=False,
+    n_experiments=N_EXPERIMENTS, base_seed=700,
     save_plots=False, save_artifacts=True,
 )
 
@@ -32,7 +32,7 @@ DP_CFG_DICT = dict(
     k_spatial_centers=[16], k_temporal_centers=[5], hidden_dims=[32, 16],
     dropout=0.0, epochs=6, lr=1e-2, batch_size=64, patience=100,
     warmup_epochs=2, scheduler="cosine", grad_clip=10.0, weight_decay=1e-5,
-    regression_type="mean", use_pallas=False,
+    regression_type="mean",
 )
 
 

@@ -30,7 +30,7 @@ def grid_results(tmp_path_factory):
                 epochs=3, lr=5e-3, batch_size=64, patience=50,
                 regression_type="mean", obs_method="site-wise", obs_ratio=0.6,
                 split_method="random", n_experiments=2, base_seed=5,
-                use_pallas=False, save_plots=False, save_artifacts=False)
+                save_plots=False, save_artifacts=False)
     out = tmp / "results"
     run_grid_search(base, {"obs_ratio": [0.4, 0.6]}, out, engine="vmap")
     return out

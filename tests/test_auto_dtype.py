@@ -1,10 +1,6 @@
 """train_dtype='auto' wide-lane policy (round 4).
 
-Adoption evidence: the bf16 trunk is wall-neutral at <=16 lanes/device
-(0.990 paired) but the measured winner at M=32 (0.907 and 0.946 median
-paired wall across two independent sessions, CRPS-neutral;
-results/ab_interleaved_bf16_m32_r4{,c}, docs/BENCHMARKS.md). 'auto' — the
-shipped default — therefore resolves to f32 at narrow widths (identical
+'auto' — the shipped default — resolves to f32 at narrow widths (identical
 compiled program to the old f32 default) and flips the whole batch to the
 bf16 trunk when a compiled batch runs wider than
 batch_engine.AUTO_BF16_LANES lanes per device."""
@@ -65,9 +61,9 @@ class TestResolution:
         assert all(s.spec.compute_dtype == "f32" for s in setups)
 
     def test_auto_flips_wide_mlps_by_size(self):
-        """Round-5 size trigger (results/scaling_regimes_r5): 'auto'
-        resolves bf16 once sum(hidden_dims) reaches the measured 2x
-        crossover, f32 below it; explicit values bypass the trigger."""
+        """Size trigger: 'auto' resolves bf16 once sum(hidden_dims) reaches
+        st_interp.AUTO_BF16_HIDDEN_SUM, f32 below it; explicit values
+        bypass the trigger."""
         from st_dadk_tpu.models.st_interp import AUTO_BF16_HIDDEN_SUM
         assert AUTO_BF16_HIDDEN_SUM == 1280  # cited crossover
         ref = ExperimentConfig.from_dict(
@@ -113,7 +109,7 @@ def _cfg(tmp_path, **kw):
         grad_clip=10.0, regression_type="mean",
         obs_method="site-wise", obs_ratio=0.5, obs_spatial_pattern="uniform",
         split_method="random", train_ratio=0.8,
-        n_experiments=2, base_seed=100, use_pallas=False,
+        n_experiments=2, base_seed=100,
         save_plots=False, save_artifacts=False,
     )
     base.update(kw)

@@ -23,7 +23,7 @@ def _cfg(epochs):
         k_spatial_centers=[9], k_temporal_centers=[4], hidden_dims=[16, 8],
         dropout=0.1, epochs=epochs, lr=5e-3, batch_size=64, patience=100,
         warmup_epochs=2, scheduler="cosine", grad_clip=10.0,
-        regression_type="mean", use_pallas=False))
+        regression_type="mean"))
 
 
 def test_resume_bitwise_equals_uninterrupted(tmp_path):

@@ -31,7 +31,7 @@ def _cfg(**kw):
         hidden_dims=[32, 16], dropout=0.0, epochs=10, lr=1e-2,
         batch_size=64, patience=100, warmup_epochs=2, scheduler="cosine",
         grad_clip=10.0, weight_decay=1e-5, regression_type="mean",
-        use_pallas=False,
+
     )
     base.update(kw)
     return ExperimentConfig.from_dict(base)

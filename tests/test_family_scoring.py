@@ -1,6 +1,6 @@
 """Tests for the family scoring harness + the 1b/3b true-scale synthesis.
 
-Covers the pieces VERDICT round-2 item 2 added: job enumeration across the
+Covers job enumeration across the
 snapshot's train / splitsol / synth modes (scripts/score_families.py) and
 the RFF Matern sampler used to reconstruct the withheld 1b/3b train files
 (scripts/synthesize_1b3b.py). Reference context: the competition layout the

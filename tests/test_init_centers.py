@@ -47,8 +47,8 @@ class TestGMM:
         assert np.isfinite(np.asarray(sigmas)).all()
 
     def test_bf16_em_close_to_f32(self):
-        # em_dtype='bfloat16' stores the (n,k) EM tensors in bf16 (a TPU
-        # HBM-traffic optimization); outputs must be f32, finite, and land
+        # em_dtype='bfloat16' stores the (n,k) EM tensors in bf16 (a
+        # memory-traffic optimization); outputs must be f32, finite, and land
         # on the same cluster structure as the exact program
         X = jnp.asarray(_two_clusters(800, 3))
         m32, s32 = gmm_spherical(jax.random.PRNGKey(5), X, 2, max_iter=50)

@@ -178,7 +178,7 @@ class TestDedupTransportPath:
         assert np.abs(red[full_flows > 0]).max() < 1e-6
         assert red.min() > -1e-6
 
-    def test_native_simplex_matches_lp(self):
+    def test_native_simplex_matches_lp(self, native_libs):
         """Native network simplex (native/transport.cpp): optimal cost must
         equal the exact LP's on random instances, cold AND warm-started
         across perturbed costs (the Lloyd-iteration usage pattern)."""
@@ -213,7 +213,8 @@ class TestDedupTransportPath:
                                        float((ref_flows * cost_u).sum()),
                                        rtol=1e-9)
 
-    def test_native_simplex_optimal_at_pivot_cap_not_cap_hit(self):
+    def test_native_simplex_optimal_at_pivot_cap_not_cap_hit(self,
+                                                             native_libs):
         """A basis that is ALREADY optimal must report success even with
         max_pivots exhausted (regression: the cap check ran before the
         optimality scan, so a warm start that was already optimal — or an

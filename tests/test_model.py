@@ -58,8 +58,8 @@ class TestForward:
         coords = jnp.asarray(np.random.default_rng(1).uniform(size=(4, 2)),
                              dtype=jnp.float32)
         t = jnp.full((4, 1), 0.3)
-        # pin f32 matmuls: the comparison target is float64 numpy, and the
-        # TPU backend's default bf16 matmul precision would dominate the
+        # pin f32 matmuls: the comparison target is float64 numpy, and an
+        # accelerator's default matmul precision (TF32 on a GPU) would dominate the
         # 1e-5 tolerance (this test asserts cumsum/closed-form EQUIVALENCE,
         # not the backend's matmul precision)
         with jax.default_matmul_precision("highest"):

@@ -38,7 +38,7 @@ def _cfg(tmp_path, **kw):
         grad_clip=10.0, regression_type="mean",
         obs_method="site-wise", obs_ratio=0.5, obs_spatial_pattern="uniform",
         split_method="random", train_ratio=0.8,
-        n_experiments=4, base_seed=300, use_pallas=False,
+        n_experiments=4, base_seed=300,
         save_plots=False, save_artifacts=True,
     )
     base.update(kw)

@@ -1,26 +1,14 @@
-"""Native C++ ingest vs pandas-path parity (skips when lib not built)."""
-import subprocess
-import sys
-from pathlib import Path
-
+"""Native C++ ingest vs an independent pandas densify (skips when the
+library cannot be built)."""
 import numpy as np
 import pytest
 
-REPO = Path(__file__).resolve().parent.parent
-
 
 @pytest.fixture(scope="module")
-def native_lib():
-    lib = REPO / "native" / "libstdadk_ingest.so"
-    if not lib.exists():
-        r = subprocess.run(["make", "-C", str(REPO / "native")],
-                           capture_output=True)
-        if r.returncode != 0 or not lib.exists():
-            pytest.skip("native lib not buildable")
+def native_lib(native_libs):
     from st_dadk_tpu.dataio.native import native_available
     if not native_available():
-        pytest.skip("native lib not loadable")
-    return lib
+        pytest.skip("native lib not buildable")
 
 
 def _pandas_reference(path):

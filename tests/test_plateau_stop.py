@@ -1,7 +1,7 @@
 """Plateau-slope early stop (config.early_stop_min_rel_delta, opt-in).
 
 The mixed-grid critical path is configs whose validation keeps improving
-marginally for the full epoch cap (docs/BENCHMARKS.md "mixed-grid x1.24");
+marginally for the full epoch cap;
 the knob thresholds the patience reset on a relative-significance margin.
 Contract under test:
   - 0.0 (default) reproduces the reference's any-improvement patience
@@ -115,7 +115,7 @@ class TestEndToEnd:
             hidden_dims=[16, 8], dropout=0.0, epochs=epochs, lr=5e-3,
             batch_size=64, patience=patience, warmup_epochs=1,
             scheduler="cosine", grad_clip=10.0, regression_type="mean",
-            use_pallas=False, early_stop_min_rel_delta=d))
+            early_stop_min_rel_delta=d))
         rng = np.random.default_rng(0)
         n = 256
         coords = rng.uniform(size=(n, 2)).astype(np.float32)

@@ -19,7 +19,6 @@ from st_dadk_tpu.models.st_interp import (
     forward,
     init_model,
     pad_lane_model,
-    spec_from_config,
     strip_lane_padding,
 )
 from st_dadk_tpu.train.batch_engine import run_job_batch, stacking_key
@@ -54,7 +53,7 @@ def _cfg(tmp_path, **kw):
         sparsity_lambda_group=1e-4,
         obs_method="site-wise", obs_ratio=0.5, obs_spatial_pattern="uniform",
         split_method="random", train_ratio=0.8,
-        n_experiments=1, base_seed=100, use_pallas=False,
+        n_experiments=1, base_seed=100,
         save_plots=False, save_artifacts=True,
     )
     base.update(kw)
@@ -62,28 +61,9 @@ def _cfg(tmp_path, **kw):
 
 
 class TestPadLaneModel:
-    def test_ragged_spec_disables_fused_kernels(self, toy_csv):
-        """The fused Pallas kernels never apply consts['spatial_k_mask'];
-        with k_spatial_pad set, spec_from_config must route every path
-        through the mask-aware plain forward regardless of the cfg's
-        use_pallas / use_fused_training flags."""
-        from st_dadk_tpu.models.st_interp import spec_from_config
-        cfg = _cfg(toy_csv, k_spatial_pad=16, use_pallas=True,
-                   use_fused_training=True, use_pallas_training=True)
-        spec = spec_from_config(cfg)
-        assert not spec.use_pallas
-        assert not spec.use_fused_training
-        assert not spec.use_pallas_training
-        # explicit override can't re-enable it either (dense-eval callers)
-        assert not spec_from_config(cfg, use_pallas=True).use_pallas
-        # ...and without padding the flags pass through
-        cfg2 = _cfg(toy_csv, use_pallas=True)
-        assert spec_from_config(cfg2).use_pallas
-
     def test_pad_strip_roundtrip(self):
         spec = ModelSpec(k_spatial_centers=(9, 16), k_temporal_centers=(4,),
-                         hidden_dims=(8,), spatial_learnable=True,
-                         use_pallas=False)
+                         hidden_dims=(8,), spatial_learnable=True)
         params, consts = init_model(jax.random.PRNGKey(0), spec)
         padded, pconsts = pad_lane_model(spec, 40, params, consts)
         assert padded["basis"]["centers"].shape == (40, 2)
@@ -99,8 +79,7 @@ class TestPadLaneModel:
     def test_padded_forward_matches_real(self):
         """phi masking + zero junk rows => identical predictions."""
         spec = ModelSpec(k_spatial_centers=(9,), k_temporal_centers=(4,),
-                         hidden_dims=(8,), spatial_learnable=True,
-                         use_pallas=False)
+                         hidden_dims=(8,), spatial_learnable=True)
         params, consts = init_model(jax.random.PRNGKey(1), spec)
         k_pad = 24
         padded, pconsts = pad_lane_model(spec, k_pad, params, consts)

@@ -18,7 +18,7 @@ def test_1a_end_to_end(ref_data_root, tmp_path):
         epochs=8, lr=1e-2, batch_size=4096, patience=50, warmup_epochs=1,
         scheduler="cosine", regression_type="mean", obs_method="site-wise",
         obs_ratio=0.5, split_method="random", base_seed=11,
-        use_pallas=False, save_plots=False, save_artifacts=False))
+        save_plots=False, save_artifacts=False))
     r = run_single_experiment(cfg, 1, tmp_path / "e", verbose=False)
     assert np.isfinite(r["test_rmse"])
     # interpolating a smooth spatial field: better than predicting the mean

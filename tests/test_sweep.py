@@ -109,7 +109,7 @@ class TestQuantileSeparateModels:
             scheduler="cosine", regression_type="quantile",
             quantile_levels=[0.25, 0.5, 0.75], obs_method="site-wise",
             obs_ratio=0.5, split_method="random", base_seed=7,
-            use_pallas=False, save_plots=False))
+            save_plots=False))
         out = tmp_path / "exp1"
         r = run_single_experiment(cfg, 1, out, verbose=False)
         assert r["regression_type"] == "quantile"
@@ -127,7 +127,7 @@ class TestQuantileSeparateModels:
         assert (out / "results.json").exists()
 
     def test_per_tau_without_artifacts(self, toy_csv, tmp_path):
-        """Regression (ADVICE r1): per-tau aggregation with
+        """Regression: per-tau aggregation with
         save_artifacts=False crashed with KeyError('_split_predictions')
         after all fits completed; split predictions must be computed for
         quantile fits regardless of artifact persistence."""
@@ -137,7 +137,7 @@ class TestQuantileSeparateModels:
             epochs=4, lr=5e-3, batch_size=64, patience=50,
             regression_type="quantile", quantile_levels=[0.25, 0.75],
             obs_method="site-wise", obs_ratio=0.5, split_method="random",
-            base_seed=7, use_pallas=False, save_plots=False,
+            base_seed=7, save_plots=False,
             save_artifacts=False))
         out = tmp_path / "exp_noart"
         r = run_single_experiment(cfg, 1, out, verbose=False)
@@ -151,7 +151,7 @@ class TestQuantileSeparateModels:
             epochs=4, lr=5e-3, batch_size=64, patience=50,
             regression_type="quantile", quantile_levels=[0.25, 0.75],
             obs_method="site-wise", obs_ratio=0.5, split_method="random",
-            base_seed=7, use_pallas=False, save_plots=False))
+            base_seed=7, save_plots=False))
         out = tmp_path / "exp1"
         r1 = run_single_experiment(cfg, 1, out, verbose=False)
         t0 = (out / "quantile_0.25" / "results.json").stat().st_mtime
@@ -169,7 +169,7 @@ class TestGridSearchEndToEnd:
             epochs=4, lr=5e-3, batch_size=64, patience=50,
             regression_type="mean", obs_method="site-wise", obs_ratio=0.5,
             split_method="random", n_experiments=2, base_seed=3,
-            use_pallas=False, save_plots=False, save_artifacts=False)
+            save_plots=False, save_artifacts=False)
         grid = {"obs_ratio": [0.4, 0.6]}
         out = tmp_path / "grid"
         results = run_grid_search(base, grid, out, engine="vmap")
@@ -192,7 +192,7 @@ class TestConfigStacking:
             epochs=5, lr=5e-3, batch_size=64, patience=50,
             regression_type="mean", obs_method="site-wise",
             split_method="random", n_experiments=2, base_seed=3,
-            use_pallas=False, save_plots=False, save_artifacts=False)
+            save_plots=False, save_artifacts=False)
         grid = {"obs_ratio": [0.5, 0.6]}
 
         out_stacked = tmp_path / "stacked"
@@ -226,7 +226,7 @@ class TestConfigStacking:
             epochs=4, lr=5e-3, batch_size=64, patience=50,
             regression_type="mean", obs_method="site-wise", obs_ratio=0.5,
             split_method="random", n_experiments=1, base_seed=3,
-            use_pallas=False, save_plots=False, save_artifacts=False)
+            save_plots=False, save_artifacts=False)
         # spatial_learnable changes the compiled program -> separate buckets
         grid = {"spatial_learnable": [False, True]}
         rs = run_grid_search(base, grid, tmp_path / "g", engine="vmap")
@@ -249,7 +249,7 @@ class TestGridPerTauStacking:
             scheduler="cosine", regression_type="quantile",
             quantile_levels=[0.25, 0.75], obs_method="site-wise",
             split_method="random", base_seed=7, n_experiments=2,
-            use_pallas=False, save_plots=False)
+            save_plots=False)
         out = tmp_path / "gq"
         res = run_grid_search(base, {"obs_ratio": [0.5]}, out,
                               engine="vmap")

@@ -149,8 +149,7 @@ class TestTPTrainStep:
             hidden_dims=[32, 16], dropout=0.0, epochs=8, lr=1e-2,
             batch_size=64, patience=100, warmup_epochs=2, scheduler="cosine",
             grad_clip=0.0, weight_decay=1e-5, regression_type="mean",
-            spatial_learnable=True, domain_penalty_weight=0.01,
-            use_pallas=False))
+            spatial_learnable=True, domain_penalty_weight=0.01))
         spec_m = spec_from_config(cfg)
         assert spec_m.k_spatial % 4 != 0
         params, consts = init_model(jax.random.PRNGKey(0), spec_m)
@@ -200,7 +199,7 @@ class TestTPTrainStep:
             batch_size=64, patience=100, warmup_epochs=1, scheduler="cosine",
             grad_clip=0.0, weight_decay=1e-5, regression_type="quantile",
             quantile_levels=[0.9], current_quantile=0.9,
-            spatial_learnable=False, use_pallas=False))
+            spatial_learnable=False))
         spec_m = spec_from_config(cfg)
         params, consts = init_model(jax.random.PRNGKey(0), spec_m)
         train_ps, valid_ps = synth(256, 1), synth(64, 2)
@@ -251,8 +250,7 @@ class TestTPTrainStep:
             spatial_learnable=True, basis_unfreeze_epoch=0,
             domain_penalty_weight=0.01, movement_penalty_weight=0.001,
             sparsity_penalty_type="sparse_group",
-            sparsity_lambda_l1=1e-4, sparsity_lambda_group=1e-4,
-            use_pallas=False))
+            sparsity_lambda_l1=1e-4, sparsity_lambda_group=1e-4))
         spec_m = spec_from_config(cfg)
         params, consts = init_model(jax.random.PRNGKey(0), spec_m)
         train_ps, valid_ps = synth(256, 1), synth(64, 2)

@@ -24,7 +24,7 @@ def _cfg(**kw):
         hidden_dims=[32, 16], dropout=0.0, epochs=30, lr=1e-2,
         batch_size=64, patience=100, warmup_epochs=2, scheduler="cosine",
         grad_clip=10.0, weight_decay=1e-5, regression_type="mean",
-        use_pallas=False,
+
     )
     base.update(kw)
     return ExperimentConfig.from_dict(base)
@@ -259,7 +259,7 @@ class TestDeltaPenaltyModes:
 
 
 class TestDropoutRng:
-    """The dropout mask stream is configurable: 'rbg' (TPU-native generator,
+    """The dropout mask stream is configurable: 'rbg' (lax.rng_bit_generator,
     the default) vs 'threefry' (jax default). Both must be deterministic per
     seed; the two streams differ; dropout=0 is stream-independent."""
 
